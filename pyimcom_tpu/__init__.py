@@ -1,10 +1,10 @@
 """
-pyimcom_tpu: a TPU-native image coaddition (IMCOM) framework.
+pyimcom_tpu: an image coaddition (IMCOM) framework on JAX/XLA.
 
 This package re-implements the capabilities of PyIMCOM (the production image
 coaddition framework for the Roman Space Telescope High Latitude Imaging
 Survey; reference: Rowe, Hirata & Rhodes 2011 and Hirata et al. 2024) as a
-TPU-first framework built on JAX/XLA/Pallas:
+framework built on JAX/XLA whose hot path runs on an NVIDIA GPU:
 
 * The per-stamp linear systems (A, -B/2, C) are assembled on device from
   FFT-based PSF cross-correlations and a separable 10x10 polynomial

@@ -176,9 +176,7 @@ class OutImage:
                          add_mode: bool = True) -> None:
         """
         Merge the shared padding-stamp region from an adjacent block
-        (reference analysis.py:394-537).  The TPU-native mosaic runner maps
-        this onto a halo exchange over the block mesh; here it is the
-        post-pass form operating on files.
+        (reference analysis.py:394-537), as a post-pass operating on files.
         """
         from .coadd import compress_map, trapezoid
 

@@ -75,7 +75,7 @@ class ValidationReport:
         with PdfPages(pdf_path) as pdf:
             # title page
             fig = plt.figure(figsize=(8.5, 11))
-            fig.text(0.5, 0.7, "PyIMCOM-TPU Validation Report", ha="center",
+            fig.text(0.5, 0.7, "PyIMCOM Validation Report", ha="center",
                      fontsize=20)
             fig.text(0.5, 0.6, self.fname, ha="center", fontsize=9)
             fig.text(0.5, 0.55, time.strftime("%Y-%m-%d %H:%M:%S UTC",

@@ -25,14 +25,16 @@ realizations are reproducible across processes.
 
 from __future__ import annotations
 
+import contextlib
+import fcntl
 import functools
 import os
 import re
 import sys
+import time
 from os.path import exists
 
 import numpy as np
-from filelock import FileLock, Timeout
 
 from .config import Settings as Stn
 from .fitsio import HDUList, ImageHDU, fits_read, fits_write
@@ -707,6 +709,35 @@ def _build_extra_layer(spec: str, inimage) -> np.ndarray | None:
     raise ValueError(f"unsupported EXTRAINPUT layer spec: {spec!r}")
 
 
+@contextlib.contextmanager
+def cache_lock(path: str, timeout: float):
+    """
+    Exclusive advisory lock on the file `path` (created if missing), shared
+    by every process on the machine.  Yields True once held, or False when
+    `timeout` seconds pass without it: the caller then goes on without the
+    cache, as the reference does (layer.py:1236-1249).
+    """
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except BlockingIOError:
+                if time.monotonic() >= deadline:
+                    yield False
+                    return
+                time.sleep(0.05)
+        try:
+            yield True
+        finally:
+            fcntl.flock(fd, fcntl.LOCK_UN)
+    finally:
+        os.close(fd)
+
+
 def get_all_data(inimage, timeout: float = 300.0) -> None:
     """
     Fill inimage.indata with the (n_inframe, nside, nside) layer cube,
@@ -720,17 +751,13 @@ def get_all_data(inimage, timeout: float = 300.0) -> None:
     cache_path = None
     if cfg.inlayercache:
         cache_path = cfg.inlayercache + f"_{idsca[0]:08d}_{idsca[1]:02d}.fits"
-        lock = FileLock(cache_path + ".lock")
-        try:
-            with lock.acquire(timeout=30):
-                if exists(cache_path):
-                    print("loading input layer <<", cache_path)
-                    inimage.indata = np.asarray(fits_read(cache_path)[0].data,
-                                                dtype=np.float32)
-                    sys.stdout.flush()
-                    return
-        except Timeout:
-            pass
+        with cache_lock(cache_path + ".lock", 30.0) as held:
+            if held and exists(cache_path):
+                print("loading input layer <<", cache_path)
+                inimage.indata = np.asarray(fits_read(cache_path)[0].data,
+                                            dtype=np.float32)
+                sys.stdout.flush()
+                return
 
     indata = np.zeros((cfg.n_inframe, nside, nside), dtype=np.float32)
     filename = get_sca_imagefile(cfg.inpath, idsca, inimage.blk.obsdata, cfg.informat)
@@ -744,17 +771,14 @@ def get_all_data(inimage, timeout: float = 300.0) -> None:
             indata[i] = layer
 
     if cache_path is not None:
-        try:
-            with lock.acquire(timeout=timeout):
+        with cache_lock(cache_path + ".lock", timeout) as held:
+            if held:
                 print("saving input layer >>", cache_path)
-                os.makedirs(os.path.dirname(cache_path), exist_ok=True)
                 hdus = [ImageHDU(indata)]
                 sciwcs = _sciwcs_hdu(inimage, filename)
                 if sciwcs is not None:
                     hdus.append(sciwcs)
                 fits_write(cache_path, HDUList(hdus))
-        except Timeout:
-            pass
     sys.stdout.flush()
 
 

@@ -2,7 +2,7 @@
 //
 // The reference pipeline ships its hot host loops as a C extension
 // (furry_parakeet: pyimcom_croutines.iD5512C family,
-// pyimcom_interface.bilinear_interpolation/_transpose).  The TPU compute
+// pyimcom_interface.bilinear_interpolation/_transpose).  The device compute
 // path here is XLA, but the HOST still interpolates PSF samples (batched
 // group sampling feeds the on-device overlap spectra) and runs the
 // destriping bilinear pair on CPU-only hosts -- this file is the native

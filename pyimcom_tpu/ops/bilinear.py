@@ -3,7 +3,7 @@ Device (JAX) bilinear interpolation pair for destriping.
 
 The reference destriper calls furry-parakeet's C
 ``bilinear_interpolation`` / ``bilinear_transpose`` (imdestripe.py:97-100,
-996-1026) inside its conjugate-gradient loop.  These are the TPU-resident
+996-1026) inside its conjugate-gradient loop.  These are the device-resident
 equivalents: the forward op is a 4-tap gain-weighted gather, the transpose
 is the exact adjoint scatter (``.at[].add``), so the CG dot-product test
 holds to arithmetic precision.  Positions are precomputed per SCA pair and

@@ -4,8 +4,8 @@ Device-resident destriping cost/gradient.
 The reference destriper evaluates its cost and gradient with C bilinear
 kernels fanned out over a process pool (reference imdestripe.py:996-1026,
 1288-1307, 1636-1654), hand-writing the adjoint of every term.  The
-TPU-native equivalent keeps every SCA image, gain map, mask, and pair
-mapping resident in HBM and expresses the WHOLE cost -- stripe model,
+device equivalent keeps every SCA image, gain map, mask, and pair
+mapping resident in device memory and expresses the WHOLE cost -- stripe model,
 gain-weighted bilinear resampling onto neighbor grids, penalty model,
 amplifier boundary-continuity term -- as one differentiable JAX function;
 ``jax.value_and_grad`` then yields the exact gradient through every term

@@ -1,17 +1,17 @@
 """
-DFT-by-matmul overlap builder: f64-grade FFTs on an f32 accelerator.
+DFT-by-matmul overlap builder: the overlap spectra as f32 matrix products.
 
-IMCOM needs the PSF overlap (cross-correlation) integrals to ~1e-9
-ABSOLUTE accuracy (reference computes them with f64 FFTs,
-psfutil.py:1103-1152); TPUs have no complex128, and a complex64
-Cooley-Tukey FFT leaves ~1e-6 absolute noise in the overlaps -- enough to
-push U/C from 4e-7 to 4e-3.  Evaluating the same transforms as dense
-DFT-matrix products on the MXU at ``Precision.HIGHEST`` behaves
-differently: each output is ONE tree-reduced f32 dot product (no
-recursive twiddle rounding), and the 1/nfft^2 inverse rescale shrinks the
-accumulation error with it.  Measured on v5e at nfft=768: max abs error
-8.9e-10 against the host f64 pipeline, 37 ms for a full 36-pair overlap
-stack -- ~1000x less error than complex64 FFT at a cost the MXU absorbs.
+IMCOM needs the PSF overlap (cross-correlation) integrals to high ABSOLUTE
+accuracy (the reference computes them with f64 FFTs, psfutil.py:1103-1152).
+Here the transforms are dense DFT-matrix products at
+``Precision.HIGHEST``: each output is one f32 dot product (no recursive
+twiddle rounding), and the 1/nfft^2 inverse rescale shrinks the
+accumulation error with it.  On an NVIDIA H100 80GB HBM3 at a 400 W power
+limit, nfft=768, 8 unit-flux PSFs (64 pairs): max abs error 1.2e-9 against
+the host f64 pipeline, 6.4 ms for spectra plus the pair stack; the
+complex128 ``jnp.fft`` route on the same card is exact to 1e-18 in 3.7 ms,
+and complex64 FFTs reach 9.2e-10 (chip_smoke.py).  Kept pending H100
+measurement of its end-to-end effect (ROADMAP).
 
 All entry points are jitted with static shapes; matrices are cached per
 (nfft, dtype) and live in HBM.
@@ -84,7 +84,7 @@ def overlap_from_spectra(x1r, x1i, x2r, x2i, nfft: int, novl: int,
 
     Only the rolled novl-window of the correlation is ever consumed, so
     the inverse transform contracts with (novl, nfft) window matrices
-    instead of the full (nfft, nfft) DFT: 4*W*N^2 + 2*W^2*N MXU FLOPs per
+    instead of the full (nfft, nfft) DFT: 4*W*N^2 + 2*W^2*N FLOPs per
     pair instead of 6*N^3 (~2.3x fewer at production W/N ~ 0.5), and the
     roll+slice disappears.
     """

@@ -3,7 +3,8 @@ Fourier-domain PSF overlap engine (device-side).
 
 The IMCOM system matrices are built from cross-correlations of sampled PSFs
 (Rowe+ 2011 eqs. 17-18; reference implementation psfutil.py:942-986 and
-1177-1295).  On TPU these are batched jnp.fft transforms:
+1177-1295).  These are batched jnp.fft transforms, used on the CPU backend
+(accelerators take ops/dftmm.py):
 
 * :func:`pad_and_rfft2` -- zero-pad sampled PSFs to the FFT grid and rfft2.
 * :func:`overlap_from_rft` -- multiply spectra, inverse transform, and

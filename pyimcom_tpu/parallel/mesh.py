@@ -3,10 +3,10 @@ Device-mesh parallelism for the coaddition pipeline.
 
 The reference framework's only multi-node strategy is embarrassingly
 parallel Slurm job arrays over mosaic blocks plus process pools on a node
-(SURVEY.md section 2.2; reference scripts/writejob_example.pl).  The
-TPU-native replacement shards the *postage-stamp batch* axis over a
-jax.sharding.Mesh: every device solves its shard of stamp systems, and the
-mosaic-level quality summaries are reduced with collectives over ICI.
+(SURVEY.md section 2.2; reference scripts/writejob_example.pl).  Here the
+*postage-stamp batch* axis is sharded over a jax.sharding.Mesh: every
+device solves its shard of stamp systems, and the mosaic-level quality
+summaries are reduced with collectives (NCCL over NVLink on GPUs).
 
 Blocks (the coarser axis) can additionally be scattered over hosts/slices
 exactly as the reference scatters them over Slurm tasks; nothing in the
@@ -45,8 +45,8 @@ def _mesh_solve_fn(mesh: Mesh, n2sq: int, solver: str, exact_UC: bool,
     collective rendezvous skew at microseconds regardless of how long the
     solves take (XLA:CPU's in-process all-reduce aborts the process if
     participants arrive more than 40 s apart, which heavy per-shard solves
-    on few cores easily exceed; on real TPUs the split also lets the solve
-    program retire its HBM before the reduction fires).
+    on few cores easily exceed; on devices the split also lets the solve
+    program retire its memory before the reduction fires).
     """
     from ..ops.assemble import solve_finalize
 
@@ -89,7 +89,7 @@ def _mesh_solve_fn(mesh: Mesh, n2sq: int, solver: str, exact_UC: bool,
 @functools.lru_cache(maxsize=None)
 def _mesh_stats_fn(mesh: Mesh):
     """Reduce per-shard (1,)-partials to replicated block-quality scalars
-    with pmax/psum collectives over the mesh axis (ICI on real hardware)."""
+    with pmax/psum collectives over the mesh axis."""
     axis = mesh.axis_names[0]
 
     @jax.jit
@@ -114,7 +114,7 @@ def solve_finalize_mesh(mesh: Mesh, A_g, B_g, C, kappaC, data_g, onehot_g,
     Solve + coadd a mini-round of stamp groups batched over the device
     mesh: one program launch covers every device's shard, and the round's
     quality summaries (max U/C, max/mean Sigma) are reduced with
-    pmax/psum collectives over ICI.  This is the production multi-chip
+    pmax/psum collectives.  This is the production multi-chip
     solve step (SURVEY.md section 2.2: "stamp-level -> batched solves over
     devices"); the per-group assembly runs on each group's own band device
     beforehand and the global arrays are formed WITHOUT data movement
@@ -137,8 +137,8 @@ def solve_finalize_mesh(mesh: Mesh, A_g, B_g, C, kappaC, data_g, onehot_g,
         # participant's thunk executes inline on its own launch thread.
         # Async-input resumption would instead schedule the blocking
         # rendezvous onto the shared intra-op pool, which deadlocks (and
-        # then F-aborts) when cores < mesh size.  Real TPU meshes skip
-        # this sync: their collectives ride ICI without a host rendezvous.
+        # then F-aborts) when cores < mesh size.  Device meshes skip this
+        # sync: their collectives need no host rendezvous.
         jax.block_until_ready((uc_p, sig_p, ssum_p))
     uc_max, sig_max, sig_sum = _mesh_stats_fn(mesh)(uc_p, sig_p, ssum_p)
     # keep the stats as device scalars: float() here would synchronize and
@@ -163,7 +163,7 @@ def sharded_stamp_solve(mesh: Mesh, A_batch, mB_batch, C, kappaC,
     -------
     T : (S, n_out, m, n) with the same sharding as the inputs;
     stats : dict of globally reduced quality summaries (max U/C, max Sigma,
-        mean Sigma) computed with psum/pmax collectives over ICI.
+        mean Sigma) computed with psum/pmax collectives.
     """
     from ..solvers import cholesky_solve
 
@@ -186,7 +186,7 @@ def sharded_stamp_solve(mesh: Mesh, A_batch, mB_batch, C, kappaC,
             return cholesky_solve(A, mB, C_, kC_, ucmin, smax)
 
         T, kappa, Sigma, UC = jax.vmap(solve_one)(A_shard, mB_shard)
-        # global quality reductions over the stamp axis (ICI collectives)
+        # global quality reductions over the stamp axis (collectives)
         uc_max = jax.lax.pmax(jnp.max(UC), axis)
         sig_max = jax.lax.pmax(jnp.max(Sigma), axis)
         sig_sum = jax.lax.psum(jnp.sum(Sigma), axis)

@@ -4,9 +4,8 @@ Mosaic-scale run orchestration.
 Counterpart of the reference's Slurm job-array generators and fork-based
 multi-block runners (reference scripts/writejob_example.pl,
 examples/multiblock_paper4.pl): blocks of a mosaic are independent jobs;
-this module runs them in-process, over a local process pool, or -- the
-TPU-native production mode -- round-robin over hosts with each host feeding
-its accelerator(s).  The prime-stride block ordering (stride 691) matches
+this module runs them in-process, over a local process pool, or
+round-robin over hosts with each host feeding its accelerator(s).  The prime-stride block ordering (stride 691) matches
 the reference so partial runs are unbiased spatial samples of the mosaic.
 
 Pipeline stages (reference docs/splitpsf_README.rst workflow), each a
@@ -59,7 +58,7 @@ def run_mosaic(cfg, blocks=None, nworkers: int = 1, skip_existing: bool = True):
     Run all (or the listed) blocks of a mosaic.
 
     nworkers > 1 fans blocks over a process pool (each worker owns the
-    accelerator serially -- appropriate for CPU hosts; on a TPU pod slice,
+    accelerator serially -- appropriate for CPU hosts; on several GPU hosts,
     run one process per host with `blocks` sharded by host index instead).
     """
     if isinstance(cfg, Config):
@@ -96,9 +95,9 @@ def host_blocks(nblock: int, process_index: int = None,
                 process_count: int = None):
     """
     Round-robin block share for one host of a multi-host run (the
-    TPU-pod counterpart of the reference's Slurm job-array block
-    assignment, scripts/writejob_example.pl:88-95).  Defaults to this
-    process's rank in the jax.distributed world.
+    counterpart of the reference's Slurm job-array block assignment,
+    scripts/writejob_example.pl:88-95).  Defaults to this process's rank
+    in the jax.distributed world.
     """
     if process_index is None:
         import jax
@@ -111,8 +110,8 @@ def host_blocks(nblock: int, process_index: int = None,
 
 def run_mosaic_multihost(cfg, skip_existing: bool = True):
     """
-    Multi-host mosaic execution: every host (one process per host, e.g. a
-    TPU pod slice initialized with jax.distributed) coadds its prime-stride
+    Multi-host mosaic execution: every host (one process per host,
+    initialized with jax.distributed) coadds its prime-stride
     round-robin share of blocks on its local accelerators.  Blocks are
     independent (the padding-stamp halo exchange is a post-pass,
     analysis.share_padding_stamps), so no collectives cross hosts here.

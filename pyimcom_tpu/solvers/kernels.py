@@ -18,11 +18,11 @@ src/pyimcom/routine.py:341-588):
 * :func:`iterative_solve` -- masked conjugate gradient per output pixel.
 * :func:`empirical_weights` -- distance-weighted T without solving.
 
-TPU-native formulation: everything is batched over output pixels (and kappa
-nodes) as dense tensor ops under jit -- eigh/cholesky feed the MXU, the
-kappa bisections are vectorized lax.fori loops on the VPU, and the masked CG
-runs all m subsystems simultaneously as (m, n) x (n, n) matmuls instead of
-the reference's per-pixel submatrix extraction.
+Formulation: everything is batched over output pixels (and kappa nodes) as
+dense tensor ops under jit -- eigh/cholesky factorizations, kappa
+bisections as vectorized lax.fori loops, and the masked CG runs all m
+subsystems simultaneously as (m, n) x (n, n) matmuls instead of the
+reference's per-pixel submatrix extraction.
 
 Padding convention: callers may zero-pad n.  Pad A with 1 on the diagonal
 (0 off-diagonal) and mBhalf with zero columns; padded coordinates then carry
@@ -258,11 +258,11 @@ def cholesky_solve(A, mBhalf, C, kappaC, ucmin, smax):
 @functools.partial(jax.jit, static_argnames=("n_nodes",))
 def eigen_solve_device(A, mBhalf, C, kappaC, ucmin, smax, n_nodes: int = 9):
     """
-    Device (TPU) implementation of the Eigen-kernel contract.
+    Device implementation of the Eigen-kernel contract without ``eigh``.
 
-    XLA:TPU cannot compile the monolithic f64 ``eigh`` (the QDWH emulation
-    hangs), so the per-pixel kappa bisection is emulated with the blocked
-    Cholesky machinery: the eigen bisection converges to the kappa where
+    The per-pixel kappa bisection is emulated with the blocked Cholesky
+    machinery (kept pending the true ``eigh`` contract on the GPU, ROADMAP
+    reach item 3): the eigen bisection converges to the kappa where
     U/C crosses ucmin (or Sigma crosses smax) -- exactly the interval rule
     of the node-weight search (reference routine.py:341-430 vs :487-588).
     A dense geometric kappa grid of `n_nodes` between kappaC[0] and
@@ -303,10 +303,9 @@ def blocked_cholesky(A, bs: int = CHOL_BLOCK):
     """
     Right-looking blocked Cholesky as a lax.fori_loop over block columns.
 
-    XLA:TPU cannot compile the monolithic float64 `cholesky` lowering at the
-    sizes IMCOM needs (the emulated-f64 unroll hangs), but per-block
-    (bs x bs) factorizations, triangular panel solves, and f64 matmul
-    trailing updates all compile in seconds and run on the (emulated) MXU.
+    Per-block (bs x bs) factorizations, triangular panel solves and f64
+    matmul trailing updates; an alternative to the monolithic f64
+    `cholesky` lowering, kept pending H100 measurement (ROADMAP).
     n must be a multiple of bs (the solver buckets are).
     """
     n = A.shape[0]
@@ -408,20 +407,20 @@ def cholesky_solve_blocked(A, mBhalf, C, kappaC, ucmin, smax):
 @functools.partial(jax.jit, static_argnames=("refine",))
 def cholesky_solve_mixed(A, mBhalf, C, kappaC, ucmin, smax, refine: int = 2):
     """
-    Mixed-precision Cholesky kernel for TPU.
+    Mixed-precision Cholesky kernel.
 
-    TPU float64 matmuls run ~1000x off MXU peak (software emulation), while
-    float32 hits the MXU.  This kernel factors A + kappa I and solves in
-    float32, then performs `refine` steps of iterative refinement with the
-    residual accumulated in float64:
+    Factors A + kappa I and solves in float32, then performs `refine` steps
+    of iterative refinement with the residual accumulated in float64:
 
         r = mBhalf - T (A + kappa I)   [f64]
         T <- T + (A + kappa I)^{-1} r  [f32 solve]
 
-    Each step contracts the error by ~eps_f32 * cond(A + kappa I); two steps
-    reach the f64 roundoff floor for the kappa-regularized systems IMCOM
-    produces (cond ~ 1/kappaC ~ 1e4..1e5).  The node cross products and the
-    per-pixel node-weight search then run in f64 (cheap: nv x nv).
+    Each step contracts the error by ~eps_f32 * cond(A + kappa I).  For a
+    production-size system (n=5248, kappaC=5e-4) on an NVIDIA H100 80GB
+    HBM3 at a 400 W power limit, two steps leave T within 8.3e-10 of the
+    CPU f64 solve (the f64 solvers: ~1e-12) and U/C within 2e-11
+    (chip_smoke.py).  The node cross products and the per-pixel
+    node-weight search then run in f64 (cheap: nv x nv).
 
     Same contract as :func:`cholesky_solve`.
     """
@@ -480,7 +479,7 @@ def _masked_cg(AA, B, mask, rtol, maxiter: int):
     `mask` (m, n) selects each pixel's relevant input pixels; keeping the
     iterates zero outside the mask makes this exactly CG on the extracted
     submatrix (the reference's per-pixel _extract_submatrix path,
-    lakernel.py:548-590) but runs as (m, n) x (n, n) matmuls on the MXU.
+    lakernel.py:548-590) but runs as (m, n) x (n, n) matmuls.
     Converged pixels freeze (alpha = 0), matching the per-pixel early break.
     """
     Bm = B * mask

@@ -399,8 +399,8 @@ def run_imsubtract_all(cfg, idscas, split_file: str, nworkers: int = None,
     Wing-subtract every exposure of a mosaic (reference
     imsubtract_wrapper.py:12-106).  Work items are independent; with
     nworkers > 1 they run in a process pool (forkserver, matching the
-    reference), otherwise serially in-process (the TPU path prefers one
-    process per accelerator).
+    reference), otherwise serially in-process (one process per
+    accelerator).
     """
     if nworkers and nworkers > 1:
         import concurrent.futures as cf

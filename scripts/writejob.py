@@ -5,7 +5,7 @@ Generate chained batch-job scripts for a full mosaic production run.
 Counterpart of the reference's Slurm pipeline generator
 (scripts/writejob_example.pl:66-120): emits one script per stage with
 dependency chaining, for either a Slurm cluster (``--scheduler slurm``,
-job arrays over blocks with afterok chaining) or a TPU pod
+job arrays over blocks with afterok chaining) or a multi-host GPU pod
 (``--scheduler pod``, one process per host via jax.distributed with
 round-robin block sharding handled by runner.run_mosaic_multihost).
 
@@ -81,7 +81,7 @@ def write_jobs(cfgfile: str, outdir: str, scheduler: str = "slurm",
                 elif st in _SCA_ARRAY_STAGES:
                     f.write("#SBATCH --array=1-18\n")
                     f.write("SCA=$SLURM_ARRAY_TASK_ID\n")
-            else:  # TPU pod: one process per host, jax.distributed ranks
+            else:  # pod: one process per host, jax.distributed ranks
                 if st in _SCA_ARRAY_STAGES:
                     cmd = "for SCA in $(seq 1 18); do " + cmd + "; done"
                 if st in _ARRAY_STAGES:

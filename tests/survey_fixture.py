@@ -132,6 +132,31 @@ def draw_star(psf_tophat, xstar, ystar, nside, ov, window=80):
     return im
 
 
+def star_quality(path, dtheta=0.04, region=np.s_[:, :]):
+    """
+    Science-star metrics of a coadded block: recovered amplitude SL1,
+    residual variance VAR and median U/C over `region` of the output
+    (the reference CI acceptance quantities, test_pyimcom.py:950-959).
+    `dtheta` is the output pixel scale in arcsec.
+    """
+    from pyimcom_tpu.fitsio import fits_read
+
+    f = fits_read(str(path))
+    w = WCS.from_header(f[0].header)
+    xs, ys = w.world2pix(SRA, SDEC)
+    d = np.asarray(f[0].data[0, 0], np.float64)
+    sig = 0.9265328730414752 * 0.11 / dtheta
+    sc = (dtheta / 0.11) ** 2
+    y, x = np.mgrid[0:d.shape[0], 0:d.shape[1]]
+    p = np.exp(-0.5 * ((x - float(xs)) ** 2 + (y - float(ys)) ** 2) / sig ** 2) \
+        / (2 * np.pi * sig ** 2 * sc)
+    d, p = d[region], p[region]
+    SL1 = float(np.sum(p * d) / np.sum(p ** 2))
+    VAR = float(np.sum((d - SL1 * p) ** 2) / np.sum(p ** 2))
+    uc = 10.0 ** (np.asarray(f["FIDELITY"].data, np.float64)[0][region] / -5000.0)
+    return SL1, VAR, float(np.median(uc))
+
+
 def build_survey(tmp_path, n_obs=14, extrainput=None, config_overrides=None):
     """
     Build the synthetic survey under `tmp_path`; returns the config dict

@@ -98,7 +98,7 @@ def test_rotate_sequence_3d():
 
 def test_rotate_sequence_convention():
     """Regression fixture for the astropy/gwcs rotate_sequence_3d
-    convention (VERDICT r2 item 8): the JWST/Roman ``v23tosky`` sequence --
+    convention: the JWST/Roman ``v23tosky`` sequence --
     angles [v2, -v3, roll, dec, -ra] over 'zyxyz', exactly as romancal
     serializes it -- must map the reference point (v2, v3) to
     (ra, dec), and at roll 0 a +v3 step must move toward celestial

@@ -351,7 +351,7 @@ def test_device_path_matches_host_path(small_survey, monkeypatch):
 def test_multi_device_rounds_match_single_device(small_survey, monkeypatch):
     """Groups column-band-sharded over 4 virtual devices produce the same
     block as a single device (stamp-level data parallelism over the mesh
-    with shard_map solves + ICI quality collectives), with ZERO
+    with shard_map solves + quality collectives), with ZERO
     device-to-device pool replication (band seams recompute locally)."""
     import jax
 

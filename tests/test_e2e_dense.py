@@ -1,6 +1,6 @@
 """End-to-end parity of the fused dense (accelerator) assembly path.
 
-The TPU pipeline assembles A / -B/2 via ONE fused gather-free interpolation
+The accelerator pipeline assembles A / -B/2 via ONE fused gather-free interpolation
 sweep per output stamp (Block._precompute_stamp_mats); on CPU the default is
 per-submatrix gather interpolation.  Forcing the dense path on CPU must
 reproduce the gather-path coadd to interpolation roundoff.

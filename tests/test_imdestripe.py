@@ -239,7 +239,7 @@ def test_boundary_continuity_penalty():
 
 def test_boundary_penalty_gradient_finite_difference():
     """Analytic image-space gradient of the boundary penalty matches a
-    central finite difference (ADVICE r2: COLBOUNDARY must steer CG)."""
+    central finite difference (COLBOUNDARY must steer CG)."""
     from pyimcom_tpu.imdestripe import (
         boundary_continuity_penalty_grad_image,
         compute_boundary_continuity_penalty)
@@ -357,8 +357,8 @@ def test_device_gradient_exact_through_gain(monkeypatch):
 
 
 def test_device_stripe_recovery_end_to_end():
-    """CG on the device path recovers injected stripes (the VERDICT r2
-    'both paths' e2e)."""
+    """CG on the device path recovers injected stripes (the device half of
+    the both-paths e2e)."""
     rng = np.random.default_rng(23)
     stripes = [rng.normal(scale=0.2, size=SIZE) for _ in range(3)]
     base = _make_problem(stripes)

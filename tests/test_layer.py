@@ -133,3 +133,51 @@ def test_gsextchrom_missing_cube_raises(tmp_path):
 
     with pytest.raises(FileNotFoundError, match="chromatic PSF cube"):
         _build_extra_layer(f"gsextchrom14,{tmp_path}/nope,n=1.0", _Img())
+
+
+def test_cache_lock_excludes_a_second_holder(tmp_path):
+    from pyimcom_tpu.layer import cache_lock
+
+    path = str(tmp_path / "sub" / "layer.fits.lock")
+    with cache_lock(path, 1.0) as first:
+        assert first
+        with cache_lock(path, 0.2) as second:
+            assert not second          # timed out: proceed without the cache
+    with cache_lock(path, 0.2) as again:
+        assert again                   # released on exit
+
+
+def test_layer_cache_skipped_while_locked(tmp_path, monkeypatch):
+    """get_all_data builds the layers itself when the cache stays locked."""
+    from types import SimpleNamespace
+
+    from pyimcom_tpu import layer
+
+    monkeypatch.setattr(layer.Stn, "sca_nside", 8)
+    cache = str(tmp_path / "cache" / "in")
+    cfg = SimpleNamespace(inlayercache=cache, n_inframe=1, inpath=str(tmp_path),
+                          informat="L2_fits", extrainput=[None])
+    img = SimpleNamespace(blk=SimpleNamespace(cfg=cfg, obsdata={"filter": [1] * 4}),
+                          idsca=(3, 4), inwcs=None)
+    lock = cache + "_00000003_04.fits.lock"
+    with layer.cache_lock(lock, 1.0):
+        layer.get_all_data(img, timeout=0.2)
+    assert img.indata.shape == (1, 8, 8)
+    assert not (tmp_path / "cache" / "in_00000003_04.fits").exists()
+    layer.get_all_data(img, timeout=0.2)   # unlocked: the cube is cached
+    assert (tmp_path / "cache" / "in_00000003_04.fits").exists()
+
+
+def test_coadd_imports_without_filelock_or_yaml():
+    """The main path needs only numpy, scipy and JAX beyond the standard
+    library: `import pyimcom_tpu.coadd` with filelock and yaml blocked."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "sys.modules['filelock'] = sys.modules['yaml'] = None\n"
+            "import pyimcom_tpu.coadd, pyimcom_tpu.runner\n")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=120)

@@ -64,10 +64,10 @@ def test_writejob_emits_runnable_stage_commands(tmp_path):
 def test_production_artifact_writers(tmp_path, monkeypatch):
     """write_partial / write_complete parse the child log + checkpoint.
 
-    Guards the round artifact the driver records (PRODUCTION_r*.json):
-    the warm rate must come from the FINAL restart segment only (child
-    clocks reset at restart), and a completed run must report the child's
-    own CHILD_DONE wall, not the watchdog's (which includes tunnel waits).
+    Guards the production artifact: the warm rate must come from the
+    FINAL resumed segment only (child clocks reset at each resume), and a
+    completed run must report the child's own CHILD_DONE wall, not the
+    parent's (which includes start-up and waits).
     """
     import json
 
@@ -159,3 +159,21 @@ def test_production_finalize_survives_truncated_log(tmp_path, monkeypatch):
     assert got["value"] == round(3200.0 / 3600.0, 3)
     assert got["s_per_stamp"] == 0.5                    # 3200 s / 6400
     assert got["blocks_per_hour_per_chip"] == round(3600.0 / 3200.0, 4)
+
+
+def test_bench_refuses_to_fall_back_to_cpu(monkeypatch, capsys):
+    """Without --cpu-only, bench.py fails on a machine with no GPU instead
+    of measuring the CPU under an accelerator's name."""
+    import importlib.util
+    import pathlib
+
+    import pytest
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "bench.py"
+    spec = importlib.util.spec_from_file_location("bench", path)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    monkeypatch.setattr(sys, "argv", ["bench.py"])
+    with pytest.raises(SystemExit, match="no GPU"):
+        bench.main()
+    assert "blocks/hour" not in capsys.readouterr().out

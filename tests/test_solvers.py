@@ -213,7 +213,7 @@ def test_mixed_precision_matches_f64(system):
 
 
 def test_blocked_cholesky_matches_monolithic(system):
-    """Blocked f64 factorization (the TPU path) equals the XLA lowering."""
+    """Blocked f64 factorization (the accelerator path) equals the XLA lowering."""
     from pyimcom_tpu.solvers import cholesky_solve_blocked
     from pyimcom_tpu.solvers.kernels import blocked_cho_solve, blocked_cholesky
 
@@ -238,7 +238,7 @@ def test_blocked_cholesky_matches_monolithic(system):
 
 
 def test_eigen_device_emulation_matches_eigen(system):
-    """eigen_solve_device (TPU path: dense-kappa-grid Cholesky emulation)
+    """eigen_solve_device (accelerator path: dense-kappa-grid Cholesky emulation)
     agrees with the eigenbasis bisection to the reference's cross-kernel
     tolerance (test_pyimcom.py:953-959)."""
     from pyimcom_tpu.solvers import eigen_solve_device
@@ -278,9 +278,9 @@ def test_eigen_device_emulation_matches_eigen(system):
 
 
 def test_eigen_device_node_count_resolution(system):
-    """Characterize eigen_solve_device's kappa resolution vs node count
-    (VERDICT r2 weak 4): the dense geomspace grid bounds per-pixel kappa
-    error by the node spacing, so the coadded-image error vs the exact
+    """Characterize eigen_solve_device's kappa resolution vs node count:
+    the dense geomspace grid bounds per-pixel kappa error by the node
+    spacing, so the coadded-image error vs the exact
     eigenbasis bisection must shrink (or stay at roundoff) as nodes grow,
     and every count stays within the cross-kernel tolerance class."""
     from pyimcom_tpu.solvers import eigen_solve_device
